@@ -1,10 +1,10 @@
 # Reproducible environment for i3dr_stereo_tpu — the analog of the
-# reference's Dockerfile (/root/reference/Dockerfile:1-35, melodic +
-# pylon + Phobos pins) and install/*.rosinstall version pins.
+# reference's Dockerfile (Dockerfile:1-35 there, melodic + pylon + Phobos
+# pins) and install/*.rosinstall version pins.
 #
-# CPU image: tests + the 8-virtual-device mesh run as in CI. On a TPU VM
-# install the matching TPU jaxlib instead:
-#   pip install "jax[tpu]==0.9.0" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# CPU image: tests + the 8-virtual-device mesh run as in CI. On an NVIDIA
+# GPU host install JAX's CUDA plugin as well:
+#   pip install "jax[cuda12]==0.9.0"
 
 FROM python:3.12-slim
 

@@ -1,6 +1,6 @@
-"""Accuracy gates at the reference's own operating points -> ACCURACY_rN.json.
+"""Accuracy gates at the reference's own operating points.
 
-BASELINE.json measurement configs exercised at full scale (the CI oracle
+BASELINE.md measurement configs exercised at full scale (the CI oracle
 tests run the same comparisons at reduced sizes — each row function takes
 a scale/size argument):
 
@@ -18,9 +18,10 @@ a scale/size argument):
 
 Every row reports median |err| px, bad-pixel rates (>1 px / >2 px %),
 and density, vs ground truth (and vs cv2 where the reference oracle is
-cv2). Gate: <0.25 px median (BASELINE.md). Run from /root/repo:
-    python accuracy_bench.py [out.json]        # TPU if available
+cv2). Gate: <0.25 px median (BASELINE.md). Run from the repository root:
+    python accuracy_bench.py [out.json]        # the GPU if JAX finds one
     JAX_PLATFORMS=cpu python accuracy_bench.py # CPU
+The JSON document is printed, and also written to out.json if given.
 """
 
 import json
@@ -29,9 +30,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from bench import _enable_compile_cache  # noqa: E402
+from i3dr_stereo_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-_enable_compile_cache()
+enable_compile_cache()
 
 import cv2  # noqa: E402
 import numpy as np  # noqa: E402
@@ -162,8 +163,7 @@ def slanted_2448_gauss(H: int = 2048, W: int = 2448) -> dict:
     reference profile runs with the interpolator on, so this is the
     faithful operating point; the row above (interpolator off) is kept
     for round-over-round comparability. Round-4 verdict weak #6 asked
-    for density >= 0.8 with median still < 0.25 px; density
-    attribution per filter is in SLANT_DENSITY_r05.json (slant_diag.py)."""
+    for density >= 0.8 with median still < 0.25 px."""
     d_near = min(180.0, W / 13.6)
     sc = slanted_scene(H, W, d_near=d_near, d_far=20.0, seed=2)
     cfg = ALGORITHM_DEFAULTS[Algorithm.I3DRSGM].replace(
@@ -181,14 +181,15 @@ def slanted_2448_gauss(H: int = 2048, W: int = 2448) -> dict:
     return row
 
 
-def main(out_path: str = "ACCURACY_r05.json") -> None:
+def main(out_path: str | None = None) -> None:
     rows = [sgbm_1280(), i3drsgm_2448(), i3drsgm_hard_2448(),
             slanted_2448(), slanted_2448_gauss()]
     doc = {"gate": "<0.25 px median (BASELINE.md); bad-pixel rates and "
                    "density reported per row",
            "all_pass": all(r["pass"] for r in rows), "rows": rows}
-    with open(out_path, "w") as f:
-        json.dump(doc, f, indent=1)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(doc, f, indent=1)
     print(json.dumps(doc))
 
 

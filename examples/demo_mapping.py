@@ -3,9 +3,10 @@ TSDF volume -> occupancy grid + voxel cloud PLY.
 
 The reference's stereo_processing.launch feeds /points2 into rtabmap +
 pcl tools (stereo_processing.launch:88-122); here the first-party TSDF
-consumer (i3dr_stereo_tpu.mapping) fills that slot. Run from /root/repo:
+consumer (i3dr_stereo_tpu.mapping) fills that slot. Run from the
+repository root:
 
-    python examples/demo_mapping.py          # TPU if available
+    python examples/demo_mapping.py          # the GPU if JAX finds one
     JAX_PLATFORMS=cpu python examples/demo_mapping.py
 """
 

@@ -4,7 +4,7 @@ through a synthetic room are tracked by projective point-to-plane ICP
 reference processing graph, launch/stereo_processing.launch:88-102) and
 fused into the TSDF volume with the ESTIMATED poses. Prints the
 trajectory error vs ground truth and the map agreement vs a
-ground-truth-pose fusion. Run from /root/repo:
+ground-truth-pose fusion. Run from the repository root:
 
     python examples/demo_mapping_moving.py
     JAX_PLATFORMS=cpu python examples/demo_mapping_moving.py

@@ -1,4 +1,4 @@
-"""End-to-end demo: synthetic capture -> fused TPU pipeline -> outputs.
+"""End-to-end demo: synthetic capture -> fused device pipeline -> outputs.
 
     python examples/demo_pipeline.py [outdir]
 

@@ -1,18 +1,19 @@
-"""i3dr_stereo_tpu — a TPU-native stereo depth engine.
+"""i3dr_stereo_tpu — a stereo depth engine in JAX for NVIDIA GPUs.
 
 A ground-up re-design of the capabilities of the reference ROS package
 ``i3drobotics/i3dr_stereo_camera-ros`` (camera capture -> rectification ->
 stereo matching -> depth / point cloud, with live parameter tuning), built
-TPU-first on JAX/XLA/Pallas:
+on JAX/XLA/Pallas:
 
 - The reference's process-per-stage ROS graph (generate_disparity,
   rectify, disparity_to_depth, crop_image_by_disparity as separate OS
   processes wired by TCPROS topics) becomes a single fused, jitted
-  pipeline executing on-chip (:mod:`i3dr_stereo_tpu.pipeline`).
+  pipeline executing on the device (:mod:`i3dr_stereo_tpu.pipeline`).
 - The reference's six matcher backends (OpenCV BM / SGBM, CUDA
   BM / BP / CSBP, licensed I3DRSGM) become one functional engine with
   selectable cost/aggregation configs (:mod:`i3dr_stereo_tpu.matchers`),
-  whose hot loops are Pallas TPU kernels (:mod:`i3dr_stereo_tpu.ops`).
+  whose SGM recurrence is a Pallas kernel on the GPU
+  (:mod:`i3dr_stereo_tpu.ops`).
 - Scaling is a `jax.sharding.Mesh` (batch x spatial) with halo exchange
   for cross-tile SGM paths (:mod:`i3dr_stereo_tpu.dist`) instead of the
   reference's multi-process / multi-GPU arrangement.

@@ -9,7 +9,7 @@ laser on/off Booleans.
 Here the segment is the native FrameRing; drivers are small processes
 (or threads) writing into it, and :class:`ShmCameraPublisher` bridges
 ring -> graph topics on the pipeline host. Real GenICam/GigE SDKs are
-not present in a TPU host image, so the hardware end implements the
+not assumed on the pipeline host, so the hardware end implements the
 same ``push(stamp, frame)`` contract.
 """
 

@@ -1,7 +1,7 @@
 """In-process pub/sub graph: the thin shell replacing the ROS transport.
 
 The reference wires 6+ OS processes with TCPROS topics, namespace
-remapping and services (SURVEY.md §1). On a TPU host the compute all
+remapping and services (SURVEY.md §1). Here the compute all
 lives in one fused program, so the graph's job shrinks to: (a) a
 host-side routing fabric for sources/sinks/tools, (b) the service +
 dynamic-reconfigure surface users script against, (c) namespace/remap

@@ -1,7 +1,7 @@
 """Node-level equivalents of the reference's executables.
 
 Each class re-creates one reference node's topic/service surface on the
-in-process graph, backed by the fused TPU pipeline instead of separate
+in-process graph, backed by the fused device pipeline instead of separate
 OS processes:
 
 - :class:`GenerateDisparityNode` <- src/generate_disparity.cpp (topics
@@ -169,9 +169,6 @@ class RectifyNode(Node):
         from i3dr_stereo_tpu.ops.rectify import make_rectify_map, remap
 
         self._maps = (make_rectify_map(rig.left), make_rectify_map(rig.right))
-        # remap is a Python dispatcher over per-backend jitted impls —
-        # wrapping it in jax.jit would bake the backend choice into the
-        # first trace (the exact stale-cache bug ops/rectify.py fixed)
         self._remap = remap
         self._last = {}
         self.subscribe("left/image_raw", lambda s, d: self._on(0, "left", s, d))

@@ -332,6 +332,9 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from i3dr_stereo_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -24,7 +24,7 @@ class Algorithm(enum.IntEnum):
     BM = 0            # "StereoBM"      — block matching
     SGBM = 1          # "StereoSGBM"    — semi-global block matching
     I3DRSGM = 2       # "StereoI3DRSGM" — pyramid census SGM (quick/subpix profile)
-    BM_GPU = 3        # "StereoBMGPU"   — device block matching (same TPU kernel as BM)
+    BM_GPU = 3        # "StereoBMGPU"   — device block matching (same code as BM)
     BP_GPU = 4        # "StereoBPGPU"   — belief propagation
     CSBP_GPU = 5      # "StereoCSBPGPU" — constant-space belief propagation
 

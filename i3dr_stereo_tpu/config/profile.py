@@ -11,7 +11,7 @@ Here the same information is a typed, immutable profile:
 - :func:`parse_param_ini` reads the reference INI dialect (sections,
   ``Key = Value`` with spaces in keys) into nested dicts — so existing
   ``.param`` files keep working.
-- :class:`SGMProfile` is the typed schedule the TPU pyramid matcher
+- :class:`SGMProfile` is the typed schedule the pyramid matcher
   actually consumes; "reconfigure" is ``dataclasses.replace`` and at most
   one re-jit, never an engine rebuild.
 - :func:`from_ros_convention` reproduces the reference's unit quirks so

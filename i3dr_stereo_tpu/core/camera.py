@@ -1,6 +1,6 @@
 """Camera models, stereo rigs and reprojection geometry.
 
-TPU-native analog of the reference's calibration plumbing:
+JAX analog of the reference's calibration plumbing:
 
 - ROS ``CameraInfo`` (K, D, R, P) handling spread across
   ``scripts/yaml2CameraInfo.py:29-49`` and

@@ -74,9 +74,10 @@ def to_mono_f32(image) -> jnp.ndarray:
     """
     x = jnp.asarray(image)
     if x.ndim == 3 and x.shape[-1] == 3:
-        # ITU-R BT.601 luma, matching cv::cvtColor BGR2GRAY weights.
-        w = jnp.asarray([0.114, 0.587, 0.299], dtype=jnp.float32)  # B, G, R
-        x = jnp.tensordot(x.astype(jnp.float32), w, axes=[[-1], [0]])
+        # ITU-R BT.601 luma, matching cv::cvtColor BGR2GRAY weights; an
+        # elementwise sum, not a dot, so no device lowers it to TF32
+        x = x.astype(jnp.float32)
+        x = x[..., 0] * 0.114 + x[..., 1] * 0.587 + x[..., 2] * 0.299
     return x.astype(jnp.float32)
 
 

@@ -3,15 +3,16 @@
 The reference scales by multi-process pipelining and the licensed
 engine's multi-GPU switch ("Indices Of GPUs In Stereo Matching",
 "MultiGPU Implementation After DSI", ini/quick.param:14,126). The
-TPU-native model is a 2D `jax.sharding.Mesh`:
+model here is a 2D `jax.sharding.Mesh`:
 
 - ``data``   — frame/batch parallelism (independent stereo pairs),
 - ``spatial``— image-row parallelism within a frame, with halo exchange
   for the SGM paths that cross tile boundaries (the CP/ring analog of
   SURVEY.md §2.4).
 
-Collectives ride ICI inside a slice; multi-host ingest happens over DCN
-at the host shell, never inside the compiled step.
+Collectives run between the cards of a host (NVLink, all to all, so the
+mesh shape follows the algorithm alone); multi-host ingest happens at
+the host shell, never inside the compiled step.
 """
 
 from __future__ import annotations

@@ -1,15 +1,14 @@
 """Multi-host ingest + scaling measurement.
 
 Reference reality: one machine, many processes, GigE cameras with jumbo
-frames (README.md:67-85). TPU-native reality: each host process ingests
-its local cameras' frames over DCN-free host I/O, places them into the
-globally-sharded batch with
-``jax.make_array_from_process_local_data``, and the compiled step runs
-SPMD over the whole pod slice — ICI collectives inside, no host hops on
-the hot path.
+frames (README.md:67-85). Here: each host process ingests its local
+cameras' frames with host I/O, places them into the globally-sharded
+batch with ``jax.make_array_from_process_local_data``, and the compiled
+step runs SPMD over every device of every process — collectives inside,
+no host hops on the hot path.
 
 Also provides the scaling-efficiency harness for BASELINE config 5
-(throughput at 1 chip / N chips, efficiency = T_N / (N * T_1)).
+(throughput at 1 device / N devices, efficiency = T_N / (N * T_1)).
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ def global_frame_batch(mesh: Mesh, local_left: np.ndarray,
     """Assemble the global (B_global, H, W) batch from this process's
     local frames. With one process this is a plain device_put with the
     batch sharding; with multiple hosts each process contributes its
-    local shard (DCN never sees pixels — each host feeds its own chips).
+    local shard (pixels never cross hosts — each feeds its own devices).
     """
     sharding = NamedSharding(mesh, P(DATA_AXIS, None, None))
     if jax.process_count() == 1:

@@ -4,13 +4,14 @@ Frames are split over the ``data`` axis; image rows over ``spatial``.
 Row-sharding needs context across the cut for (a) window ops (census /
 box windows) and (b) the vertical/diagonal SGM path recurrences. Both
 are handled with a **halo exchange**: each device ships its edge rows to
-its spatial neighbours over ICI (`jax.lax.ppermute`), computes on the
-extended block, and crops. SGM path costs are a contraction toward local
+its spatial neighbours (`jax.lax.ppermute`; NVLink joins every pair of
+cards of a host at the same rate), computes on the extended block, and
+crops. SGM path costs are a contraction toward local
 evidence (the - min_k normalization bounds each step's influence), so a
 halo of H rows makes cross-boundary error decay geometrically; tests
 measure agreement with the unsharded reference away from boundaries.
 
-This is the TPU replacement for the reference's intra-engine multi-GPU
+This replaces the reference's intra-engine multi-GPU
 ("MultiGPU Implementation After DSI = true", ini/quick.param:126) and its
 process-level pipeline parallelism (SURVEY.md §2.4).
 """
@@ -68,8 +69,11 @@ def make_sharded_matcher(cfg: MatcherConfig, mesh: Mesh, halo: int = 32
     impl = MATCHER_REGISTRY[cfg.algorithm]
     spec = P(DATA_AXIS, SPATIAL_AXIS, None)
 
+    # check_vma=False: the Pallas SGM kernel's interpreter (tests,
+    # rehearsals) cannot mix the per-device costs with its unvarying
+    # index arithmetic under the varying-axes check
     @partial(shard_map, mesh=mesh, in_specs=(spec, spec),
-             out_specs=(spec, spec))
+             out_specs=(spec, spec), check_vma=False)
     def fn(l, r):
         le = _exchange_halo(l, halo, SPATIAL_AXIS)
         re_ = _exchange_halo(r, halo, SPATIAL_AXIS)
@@ -92,7 +96,9 @@ def make_sharded_pipeline_step(rig, cfg: MatcherConfig, cloud, mesh: Mesh,
 
     Rectification gathers cross arbitrary rows (lens distortion), so it
     runs before the spatial split; XLA inserts the reshard between the
-    stages (an ICI all-to-all within each data shard).
+    stages (an all-to-all within each data shard). The rectify maps and
+    Q ride as arguments of the jitted step, not closure constants: baked
+    in, they are ~200 MB of constants at full resolution.
     """
     from i3dr_stereo_tpu.ops.depth import disparity_to_depth
     from i3dr_stereo_tpu.ops.rectify import make_rectify_map, remap
@@ -106,7 +112,7 @@ def make_sharded_pipeline_step(rig, cfg: MatcherConfig, cloud, mesh: Mesh,
     rowsharded = NamedSharding(mesh, P(DATA_AXIS, SPATIAL_AXIS, None))
 
     @jax.jit
-    def step(left, right):
+    def _step(left, right, lmap, rmap, Q):
         left = jax.lax.with_sharding_constraint(left, data_only)
         right = jax.lax.with_sharding_constraint(right, data_only)
         l = remap(left, lmap)
@@ -124,5 +130,8 @@ def make_sharded_pipeline_step(rig, cfg: MatcherConfig, cloud, mesh: Mesh,
             "depth": depth,
             "depth_valid": dvalid,
         }
+
+    def step(left, right):
+        return _step(left, right, lmap, rmap, Q)
 
     return step

@@ -6,7 +6,7 @@ GUI (launch/stereo_calibration.launch:48-56: cameracalibrator.py with a
 same division of labour here: calibration is host-side tooling (OpenCV
 solvers — the identical math cameracalibrator wraps), producing
 :class:`~i3dr_stereo_tpu.core.camera.CameraModel`/``StereoRig`` that the
-TPU pipeline consumes, persisted via io.calib_store in the ROS YAML
+device pipeline consumes, persisted via io.calib_store in the ROS YAML
 schema.
 """
 

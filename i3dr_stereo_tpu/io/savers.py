@@ -15,13 +15,13 @@ from typing import Optional
 
 import numpy as np
 
-import cv2
-
 
 def save_png(path: str, image: np.ndarray) -> str:
     img = np.asarray(image)
     if img.dtype in (np.float32, np.float64):
         img = np.clip(img, 0, 255).astype(np.uint8)
+    import cv2
+
     cv2.imwrite(path, img)
     return path
 
@@ -35,6 +35,8 @@ def save_disparity_png(path: str, disparity: np.ndarray,
     if valid is not None:
         d = np.where(np.asarray(valid), d, 0.0)
     d = np.clip(d, 0, 65535).astype(np.uint16)
+    import cv2
+
     cv2.imwrite(path, d)
     return path
 

@@ -27,8 +27,6 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
-import cv2
-
 from i3dr_stereo_tpu.io.synthetic import layered_scene
 from i3dr_stereo_tpu.pipeline.pairing import Stamped
 
@@ -97,6 +95,8 @@ class DirectorySource(CameraSource):
         return paths
 
     def frames(self) -> Iterator[Stamped]:
+        import cv2
+
         paths = self._files()
         seq = 0
         while True:
@@ -130,6 +130,8 @@ class StereoDirectorySource:
 
 def record_pairs(directory: str, pairs, left_prefix="l_rect", right_prefix="r_rect"):
     """Record a stream to disk (the 'rosbag record' analog)."""
+    import cv2
+
     os.makedirs(directory, exist_ok=True)
     n = 0
     for l, r in pairs:

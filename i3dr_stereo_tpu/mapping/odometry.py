@@ -6,7 +6,7 @@ is to ESTIMATE camera poses and hand them to the map builder
 (:mod:`i3dr_stereo_tpu.mapping.tsdf`) is pose-aware but round 4 shipped
 no pose source; this module closes that loop with the classic dense
 tracker that pairs naturally with a TSDF: **projective point-to-plane
-ICP on depth images** (the KinectFusion tracker), formulated TPU-first:
+ICP on depth images** (the KinectFusion tracker), formulated for XLA:
 
 - data association is PROJECTIVE (transform the current vertex map,
   project into the previous frame, read the hit pixel) — one flat
@@ -20,8 +20,9 @@ ICP on depth images** (the KinectFusion tracker), formulated TPU-first:
   compiled program per depth shape;
 - the tracker runs on a downsampled depth pyramid (coarse-to-fine),
   which both convexifies the alignment and keeps the per-iteration
-  gather volume tiny (a 306x256 level costs ~0.5 ms of gather on TPU;
-  full-res tracking is never needed for odometry).
+  gather volume small (full-res tracking is never needed for odometry);
+- every matrix product asks for full float32 precision: a GPU would
+  otherwise run them in TF32, and an ICP solve in TF32 is wrong.
 
 Pose conventions match :class:`~i3dr_stereo_tpu.mapping.tsdf.TSDFVolume`:
 ``T_cw`` maps world -> camera; ``T_wc = inv(T_cw)`` camera -> world.
@@ -38,6 +39,9 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+_HI = jax.lax.Precision.HIGHEST
+_mm = partial(jnp.matmul, precision=_HI)
 
 
 def _backproject(depth: jax.Array, K: jax.Array) -> jax.Array:
@@ -70,8 +74,7 @@ def _normals(verts: jax.Array, valid: jax.Array) -> Tuple[jax.Array, jax.Array]:
 def _downsample_depth(d: jax.Array) -> jax.Array:
     """2x2 mean-of-valid downsample: averaging across a depth edge
     invents phantom surfaces, so take the mean of VALID entries only.
-    Two single-axis pair-sums, not a joint strided reduction (the
-    latter compiles poorly on TPU — see ops/speckle.py)."""
+    Two single-axis pair-sums: along x, then along y."""
     H, W = d.shape
     H2, W2 = H // 2 * 2, W // 2 * 2
     x = d[:H2, :W2]
@@ -101,11 +104,11 @@ def _se3_exp(xi: jax.Array) -> jax.Array:
     c = jnp.where(th > 1e-8,
                   (th - jnp.sin(th)) / jnp.maximum(th ** 3, 1e-12), 1.0 / 6.0)
     eye = jnp.eye(3)
-    R = eye + a * Wh + b * (Wh @ Wh)
-    V = eye + b * Wh + c * (Wh @ Wh)
+    R = eye + a * Wh + b * _mm(Wh, Wh)
+    V = eye + b * Wh + c * _mm(Wh, Wh)
     T = jnp.eye(4)
     T = T.at[:3, :3].set(R)
-    T = T.at[:3, 3].set(V @ u)
+    T = T.at[:3, 3].set(_mm(V, u))
     return T
 
 
@@ -120,7 +123,7 @@ def _icp_level(Vp, Np, okp, Vc, okc, K, T, iters: int, dist_thresh):
     frac = jnp.float32(0.0)
     for _ in range(iters):
         R, t = T[:3, :3], T[:3, 3]
-        p = Vc @ R.T + t                               # (H, W, 3) in prev frame
+        p = _mm(Vc, R.T) + t                           # (H, W, 3) in prev frame
         u = K[0, 0] * p[..., 0] / jnp.maximum(p[..., 2], 1e-9) + K[0, 2]
         v = K[1, 1] * p[..., 1] / jnp.maximum(p[..., 2], 1e-9) + K[1, 2]
         ui = jnp.round(u).astype(jnp.int32)
@@ -140,11 +143,11 @@ def _icp_level(Vp, Np, okp, Vc, okc, K, T, iters: int, dist_thresh):
         cx = jnp.cross(p, n)                           # J rotation block
         J = jnp.concatenate([cx, n], axis=-1)          # (H, W, 6)
         Jw = J * wgt[..., None]
-        A = jnp.einsum("hwi,hwj->ij", Jw, J)
-        b = -jnp.einsum("hwi,hw->i", Jw, r)
+        A = jnp.einsum("hwi,hwj->ij", Jw, J, precision=_HI)
+        b = -jnp.einsum("hwi,hw->i", Jw, r, precision=_HI)
         A = A + 1e-6 * jnp.eye(6)                      # Levenberg damping
         xi = jnp.linalg.solve(A, b)
-        T = _se3_exp(xi) @ T
+        T = _mm(_se3_exp(xi), T)
         nw = jnp.maximum(jnp.sum(wgt), 1.0)
         rmse = jnp.sqrt(jnp.sum(wgt * r * r) / nw)
         frac = nw / (H * W)

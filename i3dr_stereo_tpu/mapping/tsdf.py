@@ -8,10 +8,10 @@ is the ``map_consumer`` hook of
 a first-party consumer for that hook: a truncated-signed-distance-field
 (TSDF) voxel volume fused from the pipeline's depth output.
 
-TPU-first design — **voxel-projective** integration (the KinectFusion
+Design — **voxel-projective** integration (the KinectFusion
 update turned inside-out for XLA):
 
-- instead of scattering points into voxels (TPU scatters serialize),
+- instead of scattering points into voxels (colliding scatters serialize),
   every voxel center is PROJECTED into the current depth image and reads
   the depth along its ray with one flat gather — the classic
   gather-formulated TSDF update, embarrassingly parallel over the

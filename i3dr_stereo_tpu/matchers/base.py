@@ -1,4 +1,4 @@
-"""Matcher facade: the TPU-native equivalent of AbstractStereoMatcher.
+"""Matcher facade: the JAX equivalent of AbstractStereoMatcher.
 
 The reference contract (include/stereoMatcher/abstractStereoMatcher.h:12-92):
 ``setImages`` (with optional cubic downsample), parameter setters,

@@ -1,4 +1,4 @@
-"""I3DRSGM engine facade: the licensed-engine wrapper surface, TPU-backed.
+"""I3DRSGM engine facade: the licensed-engine wrapper surface, JAX-backed.
 
 Re-creates the public surface of the reference's ``I3DRSGM`` class
 (include/stereoMatcher/I3DRSGM.h:18-86) and its adapter
@@ -156,7 +156,7 @@ class I3DRSGM:
 
     def enableCPU(self, on: bool) -> None:
         """Reference: switch engine to CPU (I3DRSGM.cpp:214-235); here:
-        force the XLA backend instead of Pallas kernels."""
+        force the plain XLA aggregation instead of the GPU kernel."""
         import os
 
         os.environ["I3DR_SGM_BACKEND"] = "xla" if on else "auto"

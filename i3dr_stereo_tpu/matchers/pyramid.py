@@ -1,4 +1,4 @@
-"""Coarse-to-fine pyramid SGM — the TPU re-design of the licensed
+"""Coarse-to-fine pyramid SGM — the JAX re-design of the licensed
 I3DRSGM/Phobos engine's schedule (ini/quick.param):
 
     6 pyramid levels, census 9x9 features, only ~31 disparities searched
@@ -18,8 +18,8 @@ with the prediction median-smoothed first so neighbouring pixels share
 window alignment (the SGM recurrence then treats equal k as equal
 disparity; exact at smooth predictions, off only across prediction
 discontinuities — the same approximation the shift-predictor engine
-makes). The whole pyramid is one jit; every level's tensors stay
-on-chip. The schedule itself is data: an
+makes). The whole pyramid is one jit; every level's tensors stay on the
+device. The schedule itself is data: an
 :class:`~i3dr_stereo_tpu.config.profile.SGMProfile` (parsed from the
 reference's .param INI files or built from the MatcherConfig).
 """
@@ -49,17 +49,12 @@ BIG = 1.0e9
 
 
 def _downsample2(img: jax.Array) -> jax.Array:
-    """2x2 area downsample of (B, H, W).
-
-    Two single-axis pair-sums, NOT reshape(...,2,...,2).mean((2,4)): the
-    joint 2-axis strided reduction compiles to a 5 ms pass at 2048x2448
-    on v5e, while minor-axis pair-sum then sublane pair-sum is ~free
-    (measured 20x faster, bit-identical)."""
+    """2x2 area downsample of (B, H, W): a pair-sum along x, then along y."""
     B, H, W = img.shape
     H2, W2 = H // 2 * 2, W // 2 * 2
     x = img[:, :H2, :W2]
-    x = x.reshape(B, H2, W2 // 2, 2).sum(-1)      # lane pairs
-    x = x.reshape(B, H2 // 2, 2, W2 // 2).sum(2)  # sublane pairs
+    x = x.reshape(B, H2, W2 // 2, 2).sum(-1)      # column pairs
+    x = x.reshape(B, H2 // 2, 2, W2 // 2).sum(2)  # row pairs
     return x * 0.25
 
 
@@ -69,14 +64,13 @@ def _upsample2_disp(d: jax.Array, H: int, W: int) -> jax.Array:
 
 
 def shifted_census_cost(cl: jax.Array, cr: jax.Array, offset: jax.Array,
-                        K: int, dtype=jnp.float32) -> tuple[jax.Array, jax.Array]:
+                        K: int) -> tuple[jax.Array, jax.Array]:
     """Census hamming cost over a per-pixel disparity window.
 
     cl/cr: (B, H, W, nw) packed census. offset: (B, H, W) int32 — the
     window's base disparity (window spans offset .. offset+K-1).
-    Returns (C: (B,H,W,K), valid). dtype=uint8 uses the 255 sentinel for
-    invalid entries (the memory-lean Pallas path; hamming <= 80 < 255
-    for census windows up to 9x9; larger windows clamp at 254).
+    Returns (C: (B,H,W,K) float32 with BIG where the window leaves the
+    image, valid).
     """
     B, H, W, nw = cl.shape
     xs = jnp.arange(W, dtype=jnp.int32)[None, None, :]
@@ -87,11 +81,7 @@ def shifted_census_cost(cl: jax.Array, cr: jax.Array, offset: jax.Array,
     crg = jnp.take_along_axis(cr[:, :, :, None, :], src_c[..., None], axis=2)
     x = jnp.bitwise_xor(cl[:, :, :, None, :], crg)
     ham = jnp.sum(jax.lax.population_count(x), axis=-1)
-    if dtype == jnp.uint8:
-        C = jnp.where(valid, jnp.minimum(ham, 254).astype(jnp.uint8),
-                      jnp.uint8(255))
-    else:
-        C = jnp.where(valid, ham.astype(jnp.float32), BIG)
+    C = jnp.where(valid, ham.astype(jnp.float32), BIG)
     return C, valid
 
 
@@ -146,14 +136,8 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
                       profile: Optional[SGMProfile] = None,
                       st=None) -> MatchResult:
     """Full coarse-to-fine match driven by a typed SGMProfile."""
-    auto_profile = profile is None
     if profile is None:
         profile = profile_from_config(cfg, st)
-    # structural uniqueness gate for the fused kernels: with an
-    # auto-built profile the margin value may be a traced scalar (live
-    # reconfigure), so the on/off decision comes from the static shadow;
-    # explicit .param profiles carry plain floats that gate themselves
-    uq_en = ((st or cfg).uniqueness_ratio > 0) if auto_profile else None
     batched = left.ndim == 3
     l = (left if batched else left[None]).astype(jnp.float32)
     r = (right if batched else right[None]).astype(jnp.float32)
@@ -175,14 +159,6 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
         pyr_r.append(_downsample2(pyr_r[-1]))
 
     dirs = DIRECTIONS_4 if cfg.num_directions == 4 else DIRECTIONS_8
-    # memory-lean dtypes on the Pallas path (uint8 costs, int16 partials)
-    from i3dr_stereo_tpu.ops.sgm_dispatch import _backend
-
-    backend = _backend()
-    fused_t = backend in ("pallas_t", "pallas_t_interpret")
-    lean = backend in ("pallas", "pallas_interpret")
-    cost_dtype = jnp.uint8 if lean else jnp.float32
-    sum_dtype = jnp.int16 if lean else None
 
     disp = None        # current estimate at `cur_level` resolution
     valid = None
@@ -208,65 +184,10 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
         pens = tuple((p.p1[min(i, 3)], p.p2[min(i, 3)])
                      for i in range(len(dirs)))
 
-        if fused_t:
-            if disp is None:
-                base_val = int(round(cfg.min_disparity / (2 ** p.level)
-                                     + p.prediction_shift))
-                pred_int = None
-                offset = jnp.full((Bh, Hh, Wh), base_val, jnp.int32)
-            else:
-                pred = disp
-                while cur_level > p.level:
-                    pred = _upsample2_disp(pred, pyr_l[cur_level - 1].shape[1],
-                                           pyr_l[cur_level - 1].shape[2])
-                    cur_level -= 1
-                pred = median3x3(pred)
-                pred_int = jnp.clip(jnp.round(pred).astype(jnp.int32), 0, Wh - 1)
-                base_val = 0
-            disp, valid, q_rt, bm = _match_level_fused_t(
-                ll, rr, pred_int, base_val, K, pens,
-                4 if len(dirs) == 4 else 8,
-                (p.census_h, p.census_w),
-                subpixel=(p.level == 0 and p.subpixel),
-                uniqueness_ratio=p.uniqueness_ratio,
-                uniqueness_enabled=uq_en,
-                want_backmatch=p.backmatch,
-                interpret=backend.endswith("interpret"))
-            cur_level = p.level
-            finest = p.level == 0
-            # matched right column must land inside the image
-            xs_v = jnp.arange(Wh, dtype=jnp.int32)[None, None, :]
-            rcol = xs_v - jnp.round(disp).astype(jnp.int32)
-            valid = valid & (rcol >= 0) & (rcol < Wh)
-            if p.backmatch:
-                disp, valid = _backmatch_check_true(
-                    disp, valid, bm, p.backmatch_dist, K,
-                    interpret=backend.endswith("interpret"))
-            if p.speckle and p.speckle_max_region > 0:
-                valid = speckle_filter(disp, valid,
-                                       max_size=p.speckle_max_region,
-                                       max_diff=p.speckle_max_diff,
-                                       downsample=cfg.speckle_downsample)
-            if p.occlusion_detection:
-                occ = detect_occlusions(disp, valid)
-                if p.interpolate_occlusions:
-                    disp, valid = fill_occlusions(disp, valid, occ)
-                else:
-                    valid = valid & ~occ
-            if p.median:
-                disp = median3x3_masked(disp, valid)
-            if not finest:
-                disp = jnp.where(valid, disp, median3x3(disp))
-            elif p.interpolate_gaps:
-                disp, valid = _fill_gaps(p, disp, valid, ll)
-            continue
-
         if disp is None:
             base_val = int(round(cfg.min_disparity / (2 ** p.level)
                                  + p.prediction_shift))
             offset = jnp.full((Bh, Hh, Wh), base_val, jnp.int32)
-            rw = rr
-            fused_base = base_val
         else:
             pred = disp
             while cur_level > p.level:
@@ -277,48 +198,17 @@ def pyramid_sgm_match(left, right, cfg: MatcherConfig,
             pred_int = jnp.round(pred).astype(jnp.int32)
             pred_int = jnp.clip(pred_int, 0, Wh - 1)
             offset = pred_int - K // 2
-            if lean:
-                # warp the right image by the prediction; the residual
-                # search window is then UNIFORM (base -K//2), which the
-                # fused no-gather kernel handles directly
-                xs = jnp.arange(Wh, dtype=jnp.int32)[None, None, :]
-                src = jnp.clip(xs - pred_int, 0, Wh - 1)
-                rw = jnp.take_along_axis(rr, src, axis=2)
-            fused_base = -(K // 2)
 
-        if lean:
-            from i3dr_stereo_tpu.ops.fused_cost_sgm import fused_census_sgm
-
-            # pad to lane/sublane-friendly sizes (odd pyramid levels)
-            H8 = (Hh + 7) // 8 * 8
-            W8 = (Wh + 7) // 8 * 8
-            ll_p = jnp.pad(ll, ((0, 0), (0, H8 - Hh), (0, W8 - Wh)), mode="edge")
-            rw_p = jnp.pad(rw if disp is not None else rr,
-                           ((0, 0), (0, H8 - Hh), (0, W8 - Wh)), mode="edge")
-            cl = census_transform(ll_p, p.census_h, p.census_w)
-            cr = census_transform(rw_p, p.census_h, p.census_w)
-            interp_mode = _backend() == "pallas_interpret"
-            S, C = fused_census_sgm(cl, cr, K, base=fused_base,
-                                    per_direction_penalties=pens,
-                                    directions=dirs, out_dtype=jnp.int16,
-                                    interpret=interp_mode)
-            S = S[:, :Hh, :Wh]
-            C = C[:, :Hh, :Wh]
-        else:
-            cl = census_transform(ll, p.census_h, p.census_w)
-            cr = census_transform(rr, p.census_h, p.census_w)
-            C, _ = shifted_census_cost(cl, cr, offset, K, dtype=cost_dtype)
-            S = sgm_aggregate(C, directions=dirs, per_direction_penalties=pens,
-                              out_dtype=sum_dtype)
+        cl = census_transform(ll, p.census_h, p.census_w)
+        cr = census_transform(rr, p.census_h, p.census_w)
+        C, _ = shifted_census_cost(cl, cr, offset, K)
+        S = sgm_aggregate(C, directions=dirs, per_direction_penalties=pens)
         finest = p.level == 0
         dk, ok = wta_disparity(S, 0, uniqueness_ratio=p.uniqueness_ratio,
                                subpixel=(finest and p.subpixel))
         disp = dk + offset.astype(jnp.float32)
         cur_level = p.level
-        if C.dtype == jnp.uint8:
-            valid = ok & (jnp.min(C, axis=-1) < 255)
-        else:
-            valid = ok & (jnp.min(C, axis=-1) < BIG / 2)
+        valid = ok & (jnp.min(C, axis=-1) < BIG / 2)
         # matched right column must land inside the image
         xs_v = jnp.arange(Wh, dtype=jnp.int32)[None, None, :]
         rcol = xs_v - jnp.round(disp).astype(jnp.int32)
@@ -374,108 +264,6 @@ def _fill_gaps(p, disp, valid, ll):
     return wls_fill(disp, valid, ll)
 
 
-def _ceil_to(v: int, m: int) -> int:
-    return (v + m - 1) // m * m
-
-
-def _match_level_fused_t(ll, rr, pred_int, base_val: int, K: int, pens,
-                         num_directions: int, census_hw, *,
-                         subpixel: bool, interpret: bool,
-                         uniqueness_ratio=0.0,
-                         uniqueness_enabled=None,
-                         want_backmatch: bool = False):
-    """One pyramid level through the dense transposed kernels
-    (ops/sgm_fused_t.py): block-shift warp, census on the transposed
-    pair, fused cost+SGM+WTA. Returns (disp_abs, valid, roundtrip
-    anchors, backmatch_info). ``backmatch_info`` (when requested) is the
-    TRUE right-anchored match derived from the same cost volume — the
-    engine's "Compute Backmatching" (ini/quick.param:121-122) — as
-    (residual_disp, d_right, valid_right) in warped (residual) space."""
-    from i3dr_stereo_tpu.ops.block_gather import block_anchors, block_shift_gather
-    from i3dr_stereo_tpu.ops.sgm_fused_t import (census_sgm_wta_t,
-                                                 right_disparity_from_C_t)
-
-    B, Hh, Wh = ll.shape
-    K8 = _ceil_to(max(K, 8), 8)
-    Hp, Wp = _ceil_to(Hh, 128), _ceil_to(Wh, 128)
-    pad2 = ((0, 0), (0, Hp - Hh), (0, Wp - Wh))
-    llp = jnp.pad(ll, pad2, mode="edge")
-    rrp = jnp.pad(rr, pad2, mode="edge")
-
-    if pred_int is None:
-        rw = rrp
-        bpm = int(base_val)
-        q = jnp.full((B, Hp // 8, Wp // 128), base_val + K8 // 2, jnp.int32)
-        offset = float(base_val)
-    else:
-        pred_p = jnp.pad(pred_int, pad2, mode="edge")
-        q = block_anchors(pred_p)
-        q_up = jnp.repeat(jnp.repeat(q, 8, axis=1), 128, axis=2)
-        pred_eff = jnp.clip(pred_p, q_up - K8 // 2, q_up + K8 // 2)
-        rw = block_shift_gather(rrp, pred_eff, q, K8 // 2, interpret=interpret)
-        bpm = -(K8 // 2)
-        offset = (pred_eff[:, :Hh, :Wh] + bpm).astype(jnp.float32)
-
-    ch, cw = census_hw
-    # transposed-land: window (h, w) swaps; bit order swaps identically on
-    # both images, so hamming distances are unchanged
-    clT = jnp.moveaxis(census_transform(jnp.transpose(llp, (0, 2, 1)), cw, ch),
-                       -1, 0)
-    crT = jnp.moveaxis(census_transform(jnp.transpose(rw, (0, 2, 1)), cw, ch),
-                       -1, 0)
-    disp_t, _C = census_sgm_wta_t(clT, crT, K8, bpm=bpm, W_real=Wh, H_real=Hh,
-                                  pens=pens, directions=num_directions,
-                                  subpixel=subpixel,
-                                  uniqueness_ratio=uniqueness_ratio,
-                                  uniqueness_enabled=uniqueness_enabled,
-                                  interpret=interpret)
-    disp_res = disp_t[:, :Hh, :Wh]
-    valid = disp_res > -1.0e8
-    disp = jnp.where(valid, disp_res, float(K8 // 2)) + offset
-    bm = None
-    if want_backmatch:
-        # warped-space left residual (absolute residual = bpm + value) and
-        # the right-anchored WTA from the same volume (true backmatching)
-        valid_p = disp_t > -1.0e8
-        r_res = jnp.where(valid_p, disp_t + float(bpm), 0.0)
-        d_r, v_r = right_disparity_from_C_t(_C, bpm, Wh)
-        bm = (r_res, valid_p, d_r, v_r, bpm)
-    return disp, valid, q, bm
-
-
-def _backmatch_check_true(disp, valid, bm, max_diff: float, K: int, *,
-                          interpret: bool):
-    """LR check against the TRUE right-anchored match (derived from the
-    level's own cost volume — "Compute Backmatching" + "Maximum
-    Backmatching Distance", ini/quick.param:121-122).
-
-    Runs in warped (residual) space, where left pixel x matched right
-    pixel x - r(x): consistent iff |r(x) - d_R(x - round(r(x)))| <=
-    max_diff. The anchor is the CONSTANT residual-window midpoint
-    (q = bpm + K8//2): since rr_int ∈ [bpm, bpm + K8] by construction
-    (the WTA searched exactly that window), |rr_int - q| <= K8//2 + 1
-    everywhere — including at depth discontinuities — so the banded
-    block gather with radius K8//2 + 1 is exact, independent of the
-    local residual statistics."""
-    from i3dr_stereo_tpu.ops.block_gather import block_shift_gather
-
-    r_res, valid_p, d_r, v_r, bpm = bm
-    B, Hh, Wh = disp.shape
-    _, Hp, Wp = r_res.shape
-    K8 = _ceil_to(max(K, 8), 8)
-    rr_int = jnp.round(r_res).astype(jnp.int32)     # in [bpm, bpm + K8]
-    q = jnp.full((B, Hp // 8, (Wp + 127) // 128), int(bpm) + K8 // 2,
-                 jnp.int32)
-    d_r_m = jnp.where(v_r, d_r, 1.0e9)              # invalid right -> fail
-    d_at = block_shift_gather(d_r_m, rr_int, q, K8 // 2 + 1,
-                              interpret=interpret)[:, :Hh, :Wh]
-    xs = jnp.arange(Wh, dtype=jnp.int32)[None, None, :]
-    xw = xs - rr_int[:, :Hh, :Wh]
-    in_w = (xw >= 0) & (xw < Wh)
-    consistent = jnp.abs(d_at - r_res[:, :Hh, :Wh]) <= max_diff
-    return disp, valid & in_w & consistent
-
-
 def _roundtrip_check(disp: jax.Array, valid: jax.Array, max_diff):
     """Backmatching on the absolute map via an exact forward-splat right
     map (the engine's "Compute Backmatching", quick.param).
@@ -490,9 +278,7 @@ def _roundtrip_check(disp: jax.Array, valid: jax.Array, max_diff):
     surfaces (error ~ d * |∇d|: a 2448-wide plane spanning 160 px of
     disparity loses every pixel with d > ~25). The splat is exact for
     any geometry: x itself always claims its right column, so only a
-    genuinely nearer surface (true occlusion) can evict it. Runs on the
-    XLA/lean paths; the fused_t path derives the true right WTA from its
-    cost volume instead (:func:`_backmatch_check_true`)."""
+    genuinely nearer surface (true occlusion) can evict it."""
     B, H, W = disp.shape
     d_int = jnp.round(disp).astype(jnp.int32)
     xr = jnp.arange(W, dtype=jnp.int32)[None, None, :] - d_int

@@ -1,6 +1,6 @@
 """The six matcher backends, keyed by the reference's algorithm enum.
 
-Reference backends (include/stereoMatcher/*.h) -> TPU-native equivalents:
+Reference backends (include/stereoMatcher/*.h) -> JAX equivalents:
 
 | enum | reference                          | here                                |
 |------|------------------------------------|-------------------------------------|
@@ -12,14 +12,13 @@ Reference backends (include/stereoMatcher/*.h) -> TPU-native equivalents:
 | 5    | MatcherOpenCVCSBPCuda              | csbp_match — coarse-to-fine BP      |
 
 All are pure jittable functions (H, W)|(B, H, W) float32 -> MatchResult.
-On TPU there is no "CPU vs CUDA" split — enum 0 and 3 share one kernel,
-which is exactly what the reference's GPU backends were approximating.
+There is no "CPU vs CUDA" split: enum 0 and 3 share one implementation,
+which XLA compiles for whichever device runs it.
 """
 
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 
 from i3dr_stereo_tpu.config.params import Algorithm, CostFunction, MatcherConfig
 from i3dr_stereo_tpu.matchers.base import MatchResult
@@ -152,35 +151,6 @@ def sgbm_match(left, right, cfg: MatcherConfig, st=None) -> MatchResult:
     l, batched = _batched(left)
     r = right if right.ndim == 3 else right[None]
 
-    from i3dr_stereo_tpu.ops.sgm_dispatch import _backend
-
-    lean = (_backend() in ("pallas", "pallas_interpret")
-            and cfg.cost == CostFunction.BT and cfg.window_size <= 1)
-    if lean:
-        # fused no-gather pixelwise-BT SGM (blockSize=1 semantics)
-        from i3dr_stereo_tpu.ops.fused_cost_sgm import fused_bt_sgm
-
-        lp = xsobel_prefilter(l, cfg.prefilter_cap)
-        rp = xsobel_prefilter(r, cfg.prefilter_cap)
-        H, W = l.shape[-2:]
-        H8, W8 = (H + 7) // 8 * 8, (W + 7) // 8 * 8
-        lp = jnp.pad(lp, ((0, 0), (0, H8 - H), (0, W8 - W)), mode="edge")
-        rp = jnp.pad(rp, ((0, 0), (0, H8 - H), (0, W8 - W)), mode="edge")
-        S, C = fused_bt_sgm(lp, rp, cfg.disparity_range,
-                            min_disp=cfg.min_disparity,
-                            p1=cfg.p1, p2=cfg.p2,
-                            directions=_directions(cfg),
-                            interpret=_backend() == "pallas_interpret")
-        S = S[:, :H, :W]
-        C = C[:, :H, :W]
-        disp, valid = wta_disparity(S, cfg.min_disparity,
-                                    uniqueness_ratio=cfg.uniqueness_ratio,
-                                    subpixel=cfg.subpixel)
-        valid = valid & (jnp.min(C, axis=-1) < 255)
-        disp, valid = _postprocess(disp, valid, S.astype(jnp.float32), cfg, l,
-                                   st)
-        return _unbatch(MatchResult(disparity=disp, valid=valid), batched)
-
     C, valid_cv = _cost_volume(l, r, cfg)
     C = box_aggregate(C, valid_cv, cfg.window_size)
     S = sgm_aggregate(C, cfg.p1, cfg.p2, _directions(cfg))
@@ -201,32 +171,6 @@ def i3drsgm_match(left, right, cfg: MatcherConfig, st=None) -> MatchResult:
     if st.pyramid:
         from i3dr_stereo_tpu.matchers.pyramid import pyramid_sgm_match
         return pyramid_sgm_match(left, right, cfg, st=st)
-    if st.disparity_range > 64:
-        from i3dr_stereo_tpu.ops.sgm_dispatch import _backend
-
-        if _backend().startswith("pallas"):
-            # The dense single-pass kernels top out at D=64 (VMEM block
-            # is WC x D x 128, ops/sgm_fused_t.py); brute-forcing 256
-            # disparities runs ~16x below the production rate. The
-            # engine's own route to wide ranges IS the pyramid (31
-            # disparities/level, ini/quick.param:128) — take it, loudly.
-            import math
-            import warnings
-
-            n = max(2, math.ceil(math.log2(max(st.disparity_range, 32)
-                                           / 31.0)) + 1)
-            warnings.warn(
-                f"disparity_range={st.disparity_range} exceeds the dense "
-                f"kernels' D<=64 ceiling; falling back to the pyramid "
-                f"schedule ({n} levels — the engine's route to wide "
-                f"ranges). Set pyramid=True to choose this explicitly, "
-                f"or disparity_range<=64 for the dense path.",
-                stacklevel=2)
-            from i3dr_stereo_tpu.matchers.pyramid import pyramid_sgm_match
-
-            return pyramid_sgm_match(
-                left, right, cfg.replace(pyramid=True, max_pyramid_level=n),
-                st=st.replace(pyramid=True, max_pyramid_level=n))
     l, batched = _batched(left)
     r = right if right.ndim == 3 else right[None]
     C, valid_cv = _cost_volume(l, r, cfg)

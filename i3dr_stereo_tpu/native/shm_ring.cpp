@@ -1,6 +1,6 @@
 // Shared-memory frame ring buffer + stamp pairer (host runtime).
 //
-// TPU-native replacement for the reference's capture transport: the
+// Replacement for the reference's capture transport: the
 // GStreamer `shmsink socket-path=/tmp/ros_mem_<serial>` segment between
 // the camera pipeline and gscam (tiscamera.py:70-77) plus the TCPROS hop
 // into the matcher process. Here a camera driver process pushes frames

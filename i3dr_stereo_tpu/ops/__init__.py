@@ -16,8 +16,3 @@ from i3dr_stereo_tpu.ops.occlusion import detect_occlusions, fill_occlusions  # 
 from i3dr_stereo_tpu.ops.subpix import halfpel_refine  # noqa: F401
 from i3dr_stereo_tpu.ops.wls import wls_fill, wls_filter  # noqa: F401
 from i3dr_stereo_tpu.ops.sgm_dispatch import sgm_aggregate_auto  # noqa: F401
-from i3dr_stereo_tpu.ops.sgm_pallas import sgm_aggregate_pallas  # noqa: F401
-from i3dr_stereo_tpu.ops.fused_cost_sgm import (  # noqa: F401
-    fused_bt_sgm,
-    fused_census_sgm,
-)

@@ -4,7 +4,7 @@ The matching cost of the reference's flagship I3DRSGM engine
 (``Feature Set = census``, ``Feature Set Size X/Y = 9`` —
 ini/quick.param:99,105-106). A 9x9 census window is 80 neighbour
 comparisons, packed here into 3 uint32 bit-planes; the hamming distance
-is XOR + ``lax.population_count`` on the 128-lane VPU.
+is XOR + ``lax.population_count``.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Directional Gauss gap interpolator — the engine's "Interpolator Mode
 = Gauss" with "Interpolator Number Of Directions = 32"
-(/root/reference/ini/quick.param:111-117): each invalid pixel is filled
+(ini/quick.param:111-117): each invalid pixel is filled
 from the nearest valid disparity along N rays, combined with Gaussian
 distance weights. Unlike isotropic diffusion (ops/wls.py), the
 directional form stays sharp near large holes: a hole next to a depth
 edge takes most of its weight from the near side of the edge.
 
-TPU-native formulation: per ray, the (value, distance) of the nearest
+Data-parallel formulation: per ray, the (value, distance) of the nearest
 valid pixel along the ray is found by DISTANCE DOUBLING — log2(R) jump
 rounds of `jnp.roll` by the rounded direction offset (pointer-jumping on
 the pixel lattice, no gathers, no scans over H or W). All N rays are

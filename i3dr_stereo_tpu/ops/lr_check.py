@@ -3,7 +3,7 @@
 The reference gets this either from cv::ximgproc::createRightMatcher (a
 full backward match, matcherOpenCVBlock.cpp:46-51) or from the engine's
 "Compute Backmatching" + "Maximum Backmatching Distance = 1.5"
-(ini/quick.param:122). TPU-native: the right-image cost volume is a pure
+(ini/quick.param:122). Here the right-image cost volume is a pure
 re-indexing of the already-aggregated left volume —
 ``S_R(y, x_r, d) = S_L(y, x_r + d, d)`` — one gather, no second SGM.
 This matches cv::StereoSGBM's internal disp2 computation.

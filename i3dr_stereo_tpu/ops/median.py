@@ -4,8 +4,7 @@ ini/quick.param:89-90, kernel 3x3) and cv::StereoSGBM's final medianBlur.
 Median-of-9 as a min/max exchange network (19 compare-exchanges, Paeth's
 network) over nine shifted views of the image. Every op is elementwise,
 so XLA fuses the whole filter into a single pass over the image — no
-(H, W, 9) stack, no sort, no minor-axis relayout. Measured ~5x faster
-than the jnp.sort formulation at 2448x2048 on TPU.
+(H, W, 9) stack, no sort, no minor-axis relayout.
 """
 
 from __future__ import annotations

@@ -5,17 +5,17 @@ inside the image callback (generate_disparity.cpp:370-386 — a known
 inefficiency) and again in the standalone node (rectify.cpp:111-127),
 then does a ``cv::remap`` with INTER_CUBIC.
 
-TPU-native design: the map depends only on the calibration, so the
+Design here: the map depends only on the calibration, so the
 inverse map (plumb-bob distortion through the rectifying rotation) and
 the separable bicubic interpolation weights are precomputed **once** on
 the host in float64, shipped to the device, and every frame is a single
-jitted weighted-gather — XLA fuses the 16 taps into one pass over HBM.
+jitted weighted gather — XLA fuses the 16 taps into one pass over
+device memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -82,17 +82,12 @@ class RectifyMap:
 
     ``flat_idx[h, w]`` indexes the top-left tap of the (T x T) stencil in
     the flattened padded source image; ``wx``/``wy`` are the T horizontal
-    / vertical weights (T=4 cubic, T=2 linear). ``banded`` (when the
-    map's local variation fits the channel budget — every real
-    calibration) carries the channelized form consumed by the gather-free
-    Pallas kernel (:mod:`~i3dr_stereo_tpu.ops.rectify_pallas`), which is
-    ~200x faster on TPU than the 16-gather formulation.
+    / vertical weights (T=4 cubic, T=2 linear).
     """
 
     flat_idx: jax.Array   # (H, W) int32 into padded flat image
     wx: jax.Array         # (H, W, T) float32
     wy: jax.Array         # (H, W, T) float32
-    banded: object | None = None   # BandedRemap | None (pytree child)
     src_h: int = dataclasses.field(default=0, metadata=dict(static=True))
     src_w: int = dataclasses.field(default=0, metadata=dict(static=True))
     pad: int = dataclasses.field(default=0, metadata=dict(static=True))
@@ -104,17 +99,12 @@ class RectifyMap:
 
 
 def make_rectify_map(cam: CameraModel, *, interpolation: str = "cubic",
-                     map_xy: tuple[np.ndarray, np.ndarray] | None = None,
-                     banded: bool | None = None) -> RectifyMap:
+                     map_xy: tuple[np.ndarray, np.ndarray] | None = None
+                     ) -> RectifyMap:
     """Build the device-side remap structure (host, once).
 
     ``map_xy`` overrides the calibration-derived inverse map — used for
     generic remap applications (e.g. unit tests, custom warps).
-    ``banded`` forces (True) / suppresses (False) building the
-    channelized form consumed by the Pallas kernel; the default (None)
-    builds it only when the resolved backend would use it, so CPU
-    sessions never pay the (CV+CH, H8, W128) float32 channel-weight
-    upload.
     """
     if map_xy is None:
         map_x, map_y = inverse_rectify_map_xy(cam)
@@ -146,20 +136,10 @@ def make_rectify_map(cam: CameraModel, *, interpolation: str = "cubic",
     bx = np.clip(base_x + pad, 0, src_w + 2 * pad - taps)
     by = np.clip(base_y + pad, 0, src_h + 2 * pad - taps)
     flat = (by * (src_w + 2 * pad) + bx).astype(np.int32)
-    if banded is None:
-        banded = _remap_backend().startswith("banded")
-    if banded:
-        from i3dr_stereo_tpu.ops.rectify_pallas import build_banded
-
-        banded = build_banded(by.astype(np.int64), bx.astype(np.int64),
-                              wx=wx, wy=wy, src_h=src_h, src_w=src_w, pad=pad)
-    else:
-        banded = None
     return RectifyMap(
         flat_idx=jnp.asarray(flat),
         wx=jnp.asarray(wx, dtype=jnp.float32),
         wy=jnp.asarray(wy, dtype=jnp.float32),
-        banded=banded,
         src_h=int(src_h),
         src_w=int(src_w),
         pad=pad,
@@ -167,82 +147,18 @@ def make_rectify_map(cam: CameraModel, *, interpolation: str = "cubic",
     )
 
 
-def _remap_backend() -> str:
-    """banded (Pallas, TPU default) | banded_interpret | gather.
-    Override with I3DR_REMAP_BACKEND."""
-    import os
-
-    b = os.environ.get("I3DR_REMAP_BACKEND", "auto")
-    if b != "auto":
-        return b
-    try:
-        platform = jax.default_backend()
-    except Exception:  # pragma: no cover
-        return "gather"
-    return "banded" if platform == "tpu" else "gather"
-
-
-def remap(image: jax.Array, rmap: RectifyMap, *,
-          backend: str | None = None) -> jax.Array:
+@jax.jit
+def remap(image: jax.Array, rmap: RectifyMap) -> jax.Array:
     """Apply the precomputed map to a (H, W) or (B, H, W) image.
 
-    On TPU (when the map channelizes — every real calibration) the
-    gather-free banded Pallas kernel runs; otherwise 16 (cubic) / 4
-    (linear) flat gathers with separable weights, fused under jit. The
-    two paths are exact reformulations of the same stencil (tests
-    assert agreement to float rounding).
-
-    The backend is resolved HERE, in Python, outside any jit — each
-    call (or each outer-jit trace when this is called from a traced
-    pipeline) re-reads ``I3DR_REMAP_BACKEND`` and dispatches to a
-    per-backend compiled implementation, so flipping the override
-    genuinely switches programs rather than hitting a stale jit cache.
-    ``backend`` overrides the env var for this call.
+    16 (cubic) / 4 (linear) flat gathers with separable weights, fused
+    under jit. uint8 sources are converted to float32 first, so they give
+    the same values as their float32 copy.
     """
-    b = backend or _remap_backend()
-    if b.startswith("banded"):
-        if rmap.banded is not None:
-            return _remap_banded_impl(image, rmap,
-                                      interpret=b == "banded_interpret")
-        # explicit banded request on a map built without banded data
-        # (built under a gather-resolving backend, or a map too wild to
-        # channelize): falling back silently would hide a ~100x perf
-        # cliff at full res — say so once
-        import warnings
-
-        warnings.warn(
-            "remap: banded backend requested but this RectifyMap has no "
-            "channelized data (built with banded=False/on a non-TPU "
-            "default, or the map failed to channelize); using the "
-            "gather path. Rebuild with make_rectify_map(..., banded=True).",
-            RuntimeWarning, stacklevel=2)
-    return _remap_gather_impl(image, rmap)
-
-
-def _pad_input(image: jax.Array, rmap: RectifyMap, keep_u8: bool = False):
     batched = image.ndim == 3
-    img = image if batched else image[None]
-    if not (keep_u8 and img.dtype == jnp.uint8):
-        img = img.astype(jnp.float32)
+    img = (image if batched else image[None]).astype(jnp.float32)
     p = rmap.pad
-    return jnp.pad(img, ((0, 0), (p, p), (p, p)), mode="edge"), batched
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def _remap_banded_impl(image: jax.Array, rmap: RectifyMap, *,
-                       interpret: bool = False) -> jax.Array:
-    from i3dr_stereo_tpu.ops.rectify_pallas import remap_banded
-
-    # uint8 sources ride the DMA as 1 byte/px and convert in VMEM —
-    # exact same values, 1/4 the mosaic traffic (rectify_pallas doc)
-    padded, batched = _pad_input(image, rmap, keep_u8=True)
-    out = remap_banded(padded, rmap.banded, interpret=interpret)
-    return out if batched else out[0]
-
-
-@jax.jit
-def _remap_gather_impl(image: jax.Array, rmap: RectifyMap) -> jax.Array:
-    padded, batched = _pad_input(image, rmap)
+    padded = jnp.pad(img, ((0, 0), (p, p), (p, p)), mode="edge")
     B = padded.shape[0]
     flat = padded.reshape(B, -1)
     W = rmap.padded_w

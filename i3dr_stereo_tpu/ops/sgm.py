@@ -9,13 +9,13 @@ optimization, ini/quick.param:144-147):
                                L_r(p-r, d+1) + P1,
                                min_k L_r(p-r, k) + P2 ) - min_k L_r(p-r, k)
 
-This module is the **XLA reference implementation**: every direction is a
+This module is the **plain XLA reference**: every direction is a
 `lax.scan` along rows or columns with the whole perpendicular extent x
-disparity vectorized per step (shape (B, H, D) or (B, W, D) — wide enough
-to fill the 8x128 VPU). Diagonal paths reuse the row scan with the carry
-shifted one column per step, so no wavefront scheduling is needed.
-The Pallas TPU kernels in :mod:`i3dr_stereo_tpu.ops.sgm_pallas` implement
-the same contract; tests assert bit-equality between the two.
+disparity vectorized per step (shape (B, H, D) or (B, W, D)). Diagonal
+paths reuse the row scan with the carry shifted one column per step, so
+no wavefront scheduling is needed. The GPU kernel in
+:mod:`i3dr_stereo_tpu.ops.sgm_triton` implements the same contract; tests
+and ``chip_smoke.py`` assert bit-equality between the two.
 """
 
 from __future__ import annotations

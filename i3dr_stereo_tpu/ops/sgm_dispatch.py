@@ -1,13 +1,16 @@
-"""Backend dispatch for SGM aggregation.
+"""The one backend choice for SGM aggregation.
 
-- On TPU: the Pallas kernels — "pallas_t" selects the dense
-  transposed-layout generation (ops.sgm_fused_t) in the pyramid engine;
-  volume-level aggregation uses ops.sgm_pallas either way.
-- On CPU/other (tests, dry runs): the XLA lax.scan reference (ops.sgm).
-- Override with I3DR_SGM_BACKEND=
-  {auto,xla,pallas,pallas_interpret,pallas_t,pallas_t_interpret}.
+- On a GPU: the Pallas kernel (:mod:`i3dr_stereo_tpu.ops.sgm_triton`).
+- On the CPU: the plain XLA reference (:mod:`i3dr_stereo_tpu.ops.sgm`).
+- ``I3DR_SGM_BACKEND=xla`` forces the reference anywhere;
+  ``I3DR_SGM_BACKEND=triton`` asks for the kernel and fails where the
+  platform has none; ``triton_interpret`` runs the kernel through the
+  Pallas interpreter on any platform, for tests and rehearsals only.
+  ``auto`` (the default) picks by platform.
 
-Both implement the identical contract; tests assert equality.
+The choice is made in Python at trace time. There is no silent fallback:
+an unknown backend name, or the kernel on a platform without it, raises.
+Both implementations are bit-identical (tests and ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -18,39 +21,37 @@ from typing import Sequence, Tuple
 import jax
 
 from i3dr_stereo_tpu.ops.sgm import DIRECTIONS_8, sgm_aggregate
-from i3dr_stereo_tpu.ops.sgm_pallas import sgm_aggregate_pallas
+
+BACKENDS = ("auto", "xla", "triton", "triton_interpret")
+# platforms the kernel is compiled for
+KERNEL_PLATFORMS = ("gpu",)
 
 
-def _backend() -> str:
+def resolve_backend(platform: str | None = None) -> str:
+    """The backend that runs on ``platform`` (default: JAX's default)."""
     b = os.environ.get("I3DR_SGM_BACKEND", "auto")
-    if b != "auto":
-        return b
-    try:
+    if b not in BACKENDS:
+        raise ValueError(f"I3DR_SGM_BACKEND={b!r}; expected one of {BACKENDS}")
+    if platform is None:
         platform = jax.default_backend()
-    except Exception:  # pragma: no cover
-        return "xla"
-    return "pallas_t" if platform == "tpu" else "xla"
+    if b == "auto":
+        b = "triton" if platform == "gpu" else "xla"
+    if b == "triton" and platform not in KERNEL_PLATFORMS:
+        raise RuntimeError(f"the SGM kernel has no build for platform "
+                           f"{platform!r}; set I3DR_SGM_BACKEND=xla")
+    return b
 
 
 def sgm_aggregate_auto(C, p1: float = 10.0, p2: float = 120.0,
                        directions: Sequence[Tuple[int, int]] = DIRECTIONS_8,
-                       per_direction_penalties=None, out_dtype=None):
-    b = _backend()
-    if b in ("pallas", "pallas_t"):
-        return sgm_aggregate_pallas(C, p1, p2, tuple(directions),
-                                    per_direction_penalties,
-                                    out_dtype=out_dtype)
-    if b in ("pallas_interpret", "pallas_t_interpret"):
-        return sgm_aggregate_pallas(C, p1, p2, tuple(directions),
-                                    per_direction_penalties,
-                                    out_dtype=out_dtype, interpret=True)
-    if C.dtype == "uint8":
-        import jax.numpy as jnp
+                       per_direction_penalties=None):
+    directions = tuple(tuple(d) for d in directions)
+    pens = (None if per_direction_penalties is None
+            else tuple(tuple(p) for p in per_direction_penalties))
+    backend = resolve_backend()
+    if backend != "xla":
+        from i3dr_stereo_tpu.ops.sgm_triton import sgm_aggregate_triton
 
-        from i3dr_stereo_tpu.ops.sgm_pallas import U8_SENTINEL
-
-        C = jnp.where(C == U8_SENTINEL, 1.0e9, C.astype(jnp.float32))
-    return sgm_aggregate(C, p1, p2, tuple(directions),
-                         per_direction_penalties=per_direction_penalties
-                         if per_direction_penalties is None
-                         else tuple(per_direction_penalties))
+        return sgm_aggregate_triton(C, p1, p2, directions, pens,
+                                    interpret=backend == "triton_interpret")
+    return sgm_aggregate(C, p1, p2, directions, per_direction_penalties=pens)

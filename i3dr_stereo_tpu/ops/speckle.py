@@ -5,10 +5,9 @@ backends via speckle_size/speckle_range, cfg/i3DR_Disparity.cfg:33-34)
 and the engine's "Disparity Speckle Filter Max Difference = 0.5 / Max
 Region Size = 100" (ini/quick.param:94-95).
 
-TPU-native formulation — a scatter-free labelling phase. Serial flood
-fill doesn't exist under XLA, and pointer-jumping label propagation
-costs one scalar-core gather *per iteration* (~11 ms each at 1.2 MP —
-it was the single most expensive op in the whole pipeline). Instead:
+Data-parallel formulation — a scatter-free labelling phase. Serial
+flood fill doesn't exist under XLA, and pointer-jumping label
+propagation costs one full gather per iteration. Instead:
 
 1. **Local min-label propagation only** (pure vector shifts): L
    iterations over the 4-connected, |Δd| <= max_diff graph. L =
@@ -35,22 +34,10 @@ oracle).
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-
-
-def _backend() -> str:
-    b = os.environ.get("I3DR_SPECKLE_BACKEND", "auto")
-    if b != "auto":
-        return b
-    try:
-        platform = jax.default_backend()
-    except Exception:  # pragma: no cover
-        return "xla"
-    return "pallas" if platform == "tpu" else "xla"
 
 
 def _neighbor_shift(x: jax.Array, dy: int, dx: int, fill) -> jax.Array:
@@ -68,10 +55,10 @@ def _neighbor_shift(x: jax.Array, dy: int, dx: int, fill) -> jax.Array:
 _NEIGH = ((1, 0), (-1, 0), (0, 1), (0, -1))
 
 
+@partial(jax.jit, static_argnames=("max_size", "iters", "downsample"))
 def speckle_filter(disp: jax.Array, valid: jax.Array, *,
                    max_size: int = 100, max_diff: float = 1.0,
-                   iters: int = 0, downsample: int = 1,
-                   backend: str | None = None) -> jax.Array:
+                   iters: int = 0, downsample: int = 1) -> jax.Array:
     """Return the updated valid mask with speckles removed.
 
     disp: (H, W) or (B, H, W) float disparities; valid: same-shape bool.
@@ -82,31 +69,12 @@ def speckle_filter(disp: jax.Array, valid: jax.Array, *,
     ~downsample^2 x cheaper; regions near the threshold may be judged
     slightly differently (the reference engine similarly speckle-filters
     at pyramid scales, ini/quick.param per-level sections).
-
-    ``backend`` (None=auto from I3DR_SPECKLE_BACKEND/platform) is resolved
-    here, OUTSIDE jit, and threaded through as part of the jit cache key —
-    changing the env var mid-process takes effect on the next call.
     """
-    if backend is None:
-        backend = _backend()
-    return _speckle_filter_impl(disp, valid, max_size=max_size,
-                                max_diff=max_diff, iters=iters,
-                                downsample=downsample, backend=backend)
-
-
-@partial(jax.jit, static_argnames=("max_size", "iters",
-                                   "downsample", "backend"))
-def _speckle_filter_impl(disp: jax.Array, valid: jax.Array, *,
-                         max_size: int, max_diff: float,
-                         iters: int, downsample: int,
-                         backend: str) -> jax.Array:
     if max_size <= 0:
         return valid
     if downsample > 1:
-        # block-reduce subsample, NOT a strided pick: lane-strided slices
-        # and jnp.repeat cost ~26 ms at 2448x2048 on TPU, while
-        # reshape+reduce / broadcast compile to full-bandwidth passes.
-        # Each kxk block is represented by its min valid disparity.
+        # block-reduce subsample: each kxk block is represented by its
+        # min valid disparity, and the verdict is broadcast back.
         k = downsample
         batched = disp.ndim == 3
         d3 = disp if batched else disp[None]
@@ -116,44 +84,22 @@ def _speckle_filter_impl(disp: jax.Array, valid: jax.Array, *,
         pH, pW = H2 * k - H, W2 * k - W
         d3p = jnp.pad(d3.astype(jnp.float32), ((0, 0), (0, pH), (0, pW)))
         v3p = jnp.pad(v3, ((0, 0), (0, pH), (0, pW)))
-        # two single-axis pair-reductions, NOT reshape(...,k,...,k) over
-        # axes (2,4): the joint strided reduction costs ~5 ms at
-        # 2048x2448 on v5e, the sequential form is ~free (bit-identical)
+        # two single-axis reductions: along x, then along y
         masked = jnp.where(v3p, d3p, jnp.inf)
         dd = masked.reshape(B, H2 * k, W2, k).min(-1)
         dd = dd.reshape(B, H2, k, W2).min(2)
         vv = v3p.reshape(B, H2 * k, W2, k).any(-1)
         vv = vv.reshape(B, H2, k, W2).any(2)
-        keep_small = _speckle_filter_impl(dd, vv,
-                                          max_size=max(max_size // (k * k), 1),
-                                          max_diff=max_diff * k,
-                                          iters=iters, downsample=1,
-                                          backend=backend)
+        keep_small = speckle_filter(dd, vv,
+                                    max_size=max(max_size // (k * k), 1),
+                                    max_diff=max_diff * k,
+                                    iters=iters, downsample=1)
         rejected = vv & ~keep_small
         rej_full = jnp.broadcast_to(rejected[:, :, None, :, None],
                                     (B, H2, k, W2, k)).reshape(B, H2 * k,
                                                                W2 * k)
         keep = v3 & ~rej_full[:, :H, :W]
         return keep if batched else keep[0]
-    b = backend
-    H, W = disp.shape[-2], disp.shape[-1]
-    if (b in ("pallas", "pallas_interpret") and max_size + 1 > 128
-            and H * W > 320 * 512):
-        # large-threshold single-window Pallas path would pull the whole
-        # frame (plus ~10 live planes) into VMEM — at full res that blows
-        # the 100 MB limit and fails to compile. XLA handles it fine.
-        b = "xla"
-    if iters == 0 and b in ("pallas", "pallas_interpret"):
-        # fused on-chip CCL kernel (same exact semantics, ~10x faster:
-        # all propagation rounds in VMEM, no scatter/gather)
-        from i3dr_stereo_tpu.ops.speckle_pallas import speckle_filter_pallas
-
-        d3 = disp if disp.ndim == 3 else disp[None]
-        v3 = valid if valid.ndim == 3 else valid[None]
-        keep = speckle_filter_pallas(d3, v3, max_size=max_size,
-                                     max_diff=max_diff,
-                                     interpret=b == "pallas_interpret")
-        return keep if disp.ndim == 3 else keep[0]
     batched = disp.ndim == 3
     d = (disp if batched else disp[None]).astype(jnp.float32)
     v = valid if batched else valid[None]

@@ -6,7 +6,7 @@ The reference's "interp" path runs cv::ximgproc's WLS disparity filter
 engine instead offers a 32-direction Gauss interpolator for gaps
 (ini/quick.param "Interpolator Mode = Gauss").
 
-TPU-native implementation: the Fast Global Smoother formulation of WLS
+Implementation: the Fast Global Smoother formulation of WLS
 (separable 1D global smoothing, alternating horizontal/vertical passes).
 Each 1D pass solves a tridiagonal system
 
@@ -17,8 +17,8 @@ with guide-image edge weights w_i = exp(-|I_{i+1} - I_i| / sigma) and
 data weight a_i = 1 on valid pixels, 0 in holes — so holes are filled by
 edge-respecting diffusion while valid pixels stay anchored. The Thomas
 solver's two sweeps are `lax.scan`s along the pass axis, vectorized over
-the perpendicular axis (full VPU occupancy, same wavefront shape as the
-SGM scans).
+the perpendicular axis (same wavefront shape as the SGM reference's
+scans).
 """
 
 from __future__ import annotations

@@ -57,9 +57,8 @@ def wta_disparity(S: jax.Array, min_disparity: int = 0, *,
 
     disp = best.astype(jnp.float32)
     if subpixel:
-        # gather-free neighbour extraction: TPU gathers are slow, so pick
-        # S[best -+ 1] with one-hot masked reductions over the (rolled)
-        # volume instead of take_along_axis
+        # pick S[best -+ 1] with one-hot masked reductions over the
+        # (rolled) volume, which XLA fuses into the WTA pass
         d_idx = jnp.arange(D)
         onehot = d_idx == best[..., None]
         Sm_roll = jnp.concatenate([S[..., :1], S[..., :-1]], axis=-1)  # S[d-1]

@@ -9,7 +9,7 @@ pair within ``slop`` seconds, dropping stale frames — the ApproximateTime
 policy's behavior for two topics.
 
 The batcher then packs pairs into fixed-size (B, H, W) device batches —
-the unit the TPU pipeline consumes (static shapes; padding replicates the
+the unit the device pipeline consumes (static shapes; padding replicates the
 last frame and is masked out of the results by ``count``).
 """
 

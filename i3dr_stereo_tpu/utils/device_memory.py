@@ -2,7 +2,7 @@
 
 The reference links a binary-only ``libcudaMem.so`` exposing
 getMemFree/Used/Total (include/stereoMatcher/cudaMem.h:14-17) so nodes
-can report GPU headroom. TPU equivalent over PJRT memory stats, with the
+can report GPU headroom. Equivalent here over PJRT memory stats, with the
 same accessor surface.
 """
 

@@ -1,7 +1,7 @@
 """Disparity/depth colorization for visualization sinks.
 
 The reference leans on rviz + a Qt/VTK GUI for this (stereo_gui.cpp,
-rviz/*.rviz). Headless TPU hosts render to images instead: a turbo-like
+rviz/*.rviz). Headless hosts render to images instead: a turbo-like
 colormap applied on device (jit) or host, invalid pixels black.
 """
 

@@ -2,7 +2,7 @@
 
 The reference's Qt/VTK window shows 4 image panes (raw, rect, disparity,
 depth) + a point-cloud view (src/StereoGUI/StereoGUI.cpp:4-25). On a
-headless TPU host the same montage is rendered to PNG files / returned
+headless host the same montage is rendered to PNG files / returned
 arrays; it subscribes to the identical topics on the bridge graph. An
 interactive matplotlib window is used when a display is available and
 ``interactive=True``.
@@ -14,8 +14,6 @@ import os
 from typing import Optional
 
 import numpy as np
-
-import cv2
 
 from i3dr_stereo_tpu.bridge.graph import Graph, Node
 from i3dr_stereo_tpu.viz.colormap import depth_to_color, disparity_to_color
@@ -32,6 +30,8 @@ def _to_u8(img):
 
 def montage(panes, cols=2, pad=4):
     """Stack same-size RGB panes into a grid image with labels."""
+    import cv2
+
     panes = [(_to_u8(p), name) for p, name in panes]
     h = max(p.shape[0] for p, _ in panes)
     w = max(p.shape[1] for p, _ in panes)
@@ -120,6 +120,8 @@ class StereoViewer(Node):
         img = self.render()
         if img is None:
             return None
+        import cv2
+
         cv2.imwrite(path, img[..., ::-1])  # RGB -> BGR for imwrite
         return path
 

@@ -1,14 +1,15 @@
-"""BASELINE config 5 in miniature -> MULTIHOST_STREAMS_rN.json.
+"""BASELINE config 5 in miniature.
 
-"Multi-host: 4 stereo streams x 1000-tile batches, pod-slice throughput
-+ collectives" (BASELINE.md config 5) exercised at CI scale on a REAL
+"Multi-host: 4 stereo streams x 1000-tile batches, throughput +
+collectives" (BASELINE.md config 5) exercised at CI scale on a REAL
 2-process `jax.distributed` rig (4 virtual CPU devices per process, the
-same code path a TPU pod slice runs): 4 concurrent stereo streams, each
+same code path a multi-host deployment runs): 4 concurrent stereo streams, each
 batching one tile per global device, sharing the mesh round-robin, with
 a cross-host valid-count all-reduce per batch. Per-stream throughput and
 accuracy are recorded per row.
 
-Run from /root/repo:
+Run from the repository root (the workers exchange results through
+out.json, by default multihost_streams.json in the temp directory):
     python multihost_streams_bench.py [out.json]
 """
 
@@ -48,15 +49,18 @@ def _run_pass(out_path: str, nprocs: int, timeout: float) -> dict:
         return json.load(f)
 
 
-def run(out_path: str = "MULTIHOST_STREAMS_r04.json",
-        timeout: float = 300.0) -> dict:
+def run(out_path: str | None = None, timeout: float = 300.0) -> dict:
+    if out_path is None:
+        import tempfile
+
+        out_path = os.path.join(tempfile.gettempdir(), "multihost_streams.json")
     doc = _run_pass(out_path, 2, timeout)
     # 1->2 host WEAK-SCALING point (BASELINE metric 3 at miniature
     # scale): the same per-device workload on a 1-process 4-device mesh
     # vs the 2-process 8-device mesh; efficiency = per-device throughput
     # ratio. Honest caveat: virtual CPU devices share physical cores, so
-    # this validates the code path + collective overhead, not ICI-scale
-    # efficiency (the CPU mesh is core-bounded — SCALING_r03 note).
+    # this validates the code path + collective overhead, not the
+    # efficiency of real devices (the CPU mesh is core-bounded).
     one = _run_pass(out_path + ".1proc", 1, timeout)
     try:
         os.remove(out_path + ".1proc")
@@ -70,7 +74,7 @@ def run(out_path: str = "MULTIHOST_STREAMS_r04.json",
         "efficiency": round(eff, 3),
         "note": "REAL 2-process jax.distributed path; virtual CPU "
                 "devices share host cores, so this measures code-path "
-                "+ collective overhead, not ICI bandwidth",
+                "+ collective overhead, not interconnect bandwidth",
     }
     with open(out_path, "w") as f:
         json.dump(doc, f, indent=1)

@@ -4,10 +4,10 @@ multihost_streams_bench.py, one subprocess per simulated host.
 
 Each of the 4 streams is an independent stereo camera pair whose frames
 are split into tiles; every batch holds one tile per global device
-(data-parallel over the full 2-process mesh, the pod-slice layout of
+(data-parallel over the full 2-process mesh, the multi-host layout of
 BASELINE config 5). Streams share the mesh round-robin — 4 concurrent
-streams contending for the same chips, like 4 capture nodes feeding one
-pod slice. Per-stream throughput, accuracy vs synthetic GT, and the
+streams contending for the same devices, like 4 capture nodes feeding
+one cluster. Per-stream throughput, accuracy vs synthetic GT, and the
 cross-host collective (a global valid-count all-reduce that XLA lowers
 to a 2-process psum) are recorded.
 

@@ -1,7 +1,7 @@
 """Accuracy gate at the reference's 1280x1024 operating point
 (BASELINE config 2: SGBM, 128 disparities, subpixel — the scale of
 launch/stereo_matcher.launch:37-38) run in CI on CPU. The 2448x2048
-pyramid case runs on TPU via accuracy_bench.py (ACCURACY_r03.json);
+pyramid case runs on a GPU via accuracy_bench.py and chip_smoke.py;
 this keeps the mid-scale gate continuously enforced (~2 min)."""
 
 import os

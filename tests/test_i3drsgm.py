@@ -116,34 +116,11 @@ def test_occlusion_detection_on_step_scene():
     assert np.asarray(newvalid)[0, 5, 25]
 
 
-# ------------------------------------------------- true backmatching --------
-
-def test_right_disparity_from_C_t_semantics():
-    """WTA over the x-shifted reindex C_R[xr, k] = C[xr + bpm + k, k]
-    (the createRightMatcher trick on the transposed volume)."""
-    from i3dr_stereo_tpu.ops.sgm_fused_t import right_disparity_from_C_t
-
-    B, Wp, D, Hp = 1, 16, 8, 8
-    bpm = -4
-    C = np.full((B, Wp, D, Hp), 200, np.uint8)
-    # right pixel xr=5 best-matched by left x=7 => disparity 2 = bpm + k
-    # with k = 6: C[7, 6] must be the min over {C[5+bpm+k, k]}
-    C[0, 7, 6, :] = 3
-    d_r, v_r = right_disparity_from_C_t(jnp.asarray(C), bpm, W_real=16)
-    d_r = np.asarray(d_r)  # (B, Hp, Wp)
-    v_r = np.asarray(v_r)
-    assert v_r[0, 2, 5]
-    assert d_r[0, 2, 5] == 2.0  # bpm + 6
-    # a column whose every candidate is the 255 sentinel is invalid
-    C2 = np.full((B, Wp, D, Hp), 255, np.uint8)
-    _, v2 = right_disparity_from_C_t(jnp.asarray(C2), bpm, W_real=16)
-    assert not np.asarray(v2).any()
-
+# ------------------------------------------------------ backmatching --------
 
 def test_true_backmatch_kills_occlusions():
-    """The true right-anchored check must invalidate most GT-occluded
-    pixels (same-map roundtrips can validate an occluded pixel whose
-    forward map happens to be locally consistent)."""
+    """The backmatching check must invalidate most GT-occluded pixels
+    while keeping most visible ones."""
     sc = layered_scene(96, 160, max_disp=24, seed=7)
     cfg = ALGORITHM_DEFAULTS[Algorithm.I3DRSGM].replace(
         disparity_range=32, speckle_size=0, backmatch_distance=1.5)
@@ -157,9 +134,8 @@ def test_true_backmatch_kills_occlusions():
 
 
 def test_uniqueness_ratio_applies_on_pyramid_path():
-    """cfg.uniqueness_ratio must actually gate the flagship WTA (it was
-    silently dropped in r2 — VERDICT weak #7); the engine default is 0
-    (quick.param has no uniqueness key)."""
+    """cfg.uniqueness_ratio must actually gate the flagship WTA; the
+    engine default is 0 (quick.param has no uniqueness key)."""
     assert ALGORITHM_DEFAULTS[Algorithm.I3DRSGM].uniqueness_ratio == 0.0
     sc = layered_scene(96, 128, max_disp=20, seed=9)
     base = ALGORITHM_DEFAULTS[Algorithm.I3DRSGM].replace(
@@ -204,85 +180,3 @@ def test_quick_profile_uses_gauss_interpolator():
     lv = p.enabled_levels[0]
     assert lv.interpolator_mode == "gauss"
     assert lv.interp_directions == 32
-
-
-def test_right_disparity_rolled_matches_unrolled():
-    """D > 64 takes the fori_loop/dynamic-slice path; it must agree with
-    the unrolled static-shift reference."""
-    from i3dr_stereo_tpu.ops.sgm_fused_t import right_disparity_from_C_t
-
-    rng = np.random.default_rng(11)
-    B, Wp, D, Hp = 1, 40, 72, 16
-    bpm = -8
-    C = rng.integers(0, 250, (B, Wp, D, Hp)).astype(np.uint8)
-    d_big, v_big = map(np.asarray,
-                       right_disparity_from_C_t(jnp.asarray(C), bpm, Wp))
-    # numpy reference (same reindex, explicit)
-    best = np.full((B, Wp, Hp), 255, np.int32)
-    bestk = np.zeros((B, Wp, Hp), np.int32)
-    for k in range(D):
-        s = bpm + k
-        plane = np.full((B, Wp, Hp), 255, np.int32)
-        if s >= 0:
-            if s < Wp:
-                plane[:, :Wp - s] = C[:, s:, k, :]
-        else:
-            plane[:, -s:] = C[:, :s, k, :]
-        better = plane < best
-        best = np.where(better, plane, best)
-        bestk = np.where(better, k, bestk)
-    ref = (bpm + bestk).astype(np.float32).transpose(0, 2, 1)
-    np.testing.assert_array_equal(d_big[v_big],
-                                  ref.transpose(0, 1, 2)[np.asarray(v_big)])
-
-
-def test_wide_range_dense_path_guided_fallback(monkeypatch):
-    """disparity_range > 64 on the dense Pallas path: the matcher must
-    not silently brute-force 16x below the production rate — it warns
-    and takes the pyramid schedule (the engine's own route to wide
-    ranges, ini/quick.param:128). Round-3 verdict #9."""
-    import warnings
-
-    import numpy as np
-
-    from i3dr_stereo_tpu.config.params import ALGORITHM_DEFAULTS, Algorithm
-    from i3dr_stereo_tpu.io.synthetic import layered_scene
-    from i3dr_stereo_tpu.matchers.registry import compute_disparity
-
-    monkeypatch.setenv("I3DR_SGM_BACKEND", "pallas_t_interpret")
-    sc = layered_scene(96, 128, max_disp=20)
-    cfg = ALGORITHM_DEFAULTS[Algorithm.I3DRSGM].replace(
-        pyramid=False, disparity_range=128, speckle_size=0)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        res = compute_disparity(sc.left, sc.right, cfg)
-        msgs = [str(x.message) for x in w]
-    assert any("pyramid" in m and "D<=64" in m for m in msgs), msgs
-    v = np.asarray(res.valid) & sc.valid
-    d = np.asarray(res.disparity)
-    assert v.mean() > 0.5
-    assert np.median(np.abs(d - sc.disparity)[v]) < 0.5
-
-
-def test_right_disparity_ignores_zero_cost_padding():
-    """The fwd kernel's padded left columns (x >= W_real) carry ZERO
-    cost by design; the right-anchored WTA must not let them win the
-    argmin (they'd suppress genuine matches over the last ~D/2 right
-    columns via the in_img gate — review finding, round 5)."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from i3dr_stereo_tpu.ops.sgm_fused_t import right_disparity_from_C_t
-
-    B, Wp, D, Hp, W_real, bpm = 1, 16, 8, 8, 12, -4
-    C = np.full((B, Wp, D, Hp), 50, np.uint8)
-    C[:, W_real:, :, :] = 0              # zero-cost padding
-    C[0, 8, 2, :] = 5                    # genuine best: xr=10, k=2
-    d_r, v_r = right_disparity_from_C_t(jnp.asarray(C), bpm, W_real)
-    d_r, v_r = np.asarray(d_r), np.asarray(v_r)
-    # right col 10: candidates xl = 6..13; 12,13 are pads and must lose
-    assert v_r[0, 0, 10]
-    assert d_r[0, 0, 10] == bpm + 2
-    # at the last right col the only IN-IMAGE candidate is k=0
-    # (xl=11); the zero-cost pads at k>=1 must not beat it
-    assert v_r[0, 0, 15] and d_r[0, 0, 15] == bpm

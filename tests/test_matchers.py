@@ -175,7 +175,7 @@ def _wls_exact_2d(d, conf, guide, lam=8000.0, sigma=1.5):
 
 
 def test_wls_matches_exact_2d_oracle():
-    """ops.wls.wls_filter (the TPU fast-global-smoother) vs the exact 2D
+    """ops.wls.wls_filter (the fast global smoother) vs the exact 2D
     WLS solution at the reference's own operating point (lambda=8000,
     sigma=1.5, matcherOpenCVBlock.cpp:22-33): the separable schedule
     must land within a few hundredths of a pixel of the true objective
